@@ -1,6 +1,6 @@
-"""pion_tpu: TPU-native finite-volume MHD framework.
+"""pion_tpu: a JAX finite-volume MHD framework for NVIDIA GPUs.
 
-A from-scratch JAX/XLA/Pallas re-design of the capabilities of PION
+A from-scratch JAX/XLA re-design of the capabilities of PION
 (photoionization + MHD nebular dynamics): dense sharded grids, vectorized
 MUSCL/Riemann sweeps, batched stiff chemistry, scan-based raytracing, and
 ``shard_map`` halo exchange in place of MPI.

@@ -1,29 +1,15 @@
 """``python -m pion_tpu {icgen,run} ...`` — the reference's binaries
 (reference: bin_serial/Makefile:389-400 pion-ugs/icgen-ugs targets).
 
-Environment:
-  PION_TPU_PLATFORM=cpu|tpu|...  force the JAX backend (some site setups
-      consume JAX_PLATFORMS before user code runs, so the override must go
-      through jax.config).
-  PION_TPU_CACHE=<dir>  persistent XLA compile-cache directory (default
-      /tmp/pion_tpu_xla_cache; NG step programs take minutes to compile
-      cold, seconds warm).
+The backend follows ``JAX_PLATFORMS``; the persistent compile cache
+follows ``JAX_COMPILATION_CACHE_DIR``, or ``<checkout>/.jax_cache`` when
+that is unset (see :mod:`pion_tpu.device`).
 """
-import os
-
-import jax
-
-plat = os.environ.get("PION_TPU_PLATFORM")
-if plat:
-    jax.config.update("jax_platforms", plat)
-jax.config.update(
-    "jax_compilation_cache_dir",
-    os.environ.get("PION_TPU_CACHE", "/tmp/pion_tpu_xla_cache"))
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-
-from .cli import main  # noqa: E402
+from .device import use_compile_cache
+from .cli import main
 
 if __name__ == "__main__":
     import sys
 
+    use_compile_cache()
     sys.exit(main())

@@ -1,6 +1,6 @@
 """Synthetic observations: line-of-sight projections of emissivities.
 
-TPU-native equivalent of the reference projection tools
+JAX equivalent of the reference projection tools
 (reference: analysis/projection/project2D.cpp:87,286-342 — Halpha, [NII]
 6584, emission measure and X-ray maps from 2D axisymmetric snapshots;
 analysis/projection3D/ for 3D volumes; emissivity functions from
@@ -9,13 +9,14 @@ analysis/xray/xray_emission.cpp:263-295).
 The axisymmetric projection is an Abel-type integral: for impact parameter
 b, I(z,b) = sum over annuli R>=b of j(R,z) * chord(R,b).  The chord-length
 weights form a static (n_b x n_R) matrix, so projecting a whole snapshot is
-one matmul per emissivity — it rides the MXU.
+one matrix product per emissivity.
 """
 from __future__ import annotations
 
 from typing import Dict, Optional
 
 import numpy as np
+import jax
 import jax.numpy as jnp
 
 from ..config import SimConfig
@@ -266,7 +267,9 @@ def project_axisymmetric(P, cfg: SimConfig, mp=None,
             j = brems6ghz_emissivity(ne, T)
         else:
             raise ValueError(f"unknown projection quantity {q}")
-        out[q] = W @ j  # (n_b, n_R) @ (n_R, n_z) -> (n_b, n_z)
+        # (n_b, n_R) @ (n_R, n_z) -> (n_b, n_z); full f32 precision (a
+        # float32 product may otherwise run in TF32)
+        out[q] = jnp.matmul(W, j, precision=jax.lax.Precision.HIGHEST)
     return out
 
 
@@ -331,7 +334,7 @@ def _rotate_cube(P, cfg: SimConfig, axis: int, theta: float):
     """Resample the state so a line of sight tilted by ``theta`` lies along
     array ``axis``.
 
-    TPU-native equivalent of projection3D's tilted-ray sampling
+    JAX equivalent of projection3D's tilted-ray sampling
     (reference: analysis/projection3D/sim_projection.cpp builds rays at
     angle theta and bilinearly averages the 4 neighbouring cells per sample
     point — point_quantities.cpp `point_4cellavg` weights); here the whole

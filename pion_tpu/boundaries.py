@@ -109,8 +109,7 @@ def _pad_axis(P, cfg: SimConfig, axis: int, bdata: BoundaryData, t=0.0):
 
     def slab(lo, hi):
         # contiguous slice along ``ax`` — unlike jnp.take with an index
-        # array this lowers to a plain slice, not a gather (a full-grid
-        # gather costs ~4x a copy on TPU)
+        # array this lowers to a plain slice, not a gather
         idx = [slice(None)] * P.ndim
         idx[ax] = slice(lo, hi)
         return P[tuple(idx)]

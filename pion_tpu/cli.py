@@ -358,6 +358,11 @@ def physics_from_params(cfg: SimConfig, params) -> Optional[object]:
     """chem_code + RT_* + WIND_* -> a Physics bundle, or None for pure
     dynamics (reference dispatch: setup_fixed_grid.cpp:270-410)."""
     from .physics import Physics
+    from .utils import ensure_precision
+
+    # the chemistry tables become device arrays here: switch x64 on first
+    # for float64 runs, or they are built in float32
+    ensure_precision(cfg)
 
     sources = sources_from_params(cfg, params)
     winds = winds_from_params(cfg, params)

@@ -60,16 +60,13 @@ class SimConfig:
     glm_cr_factor: float = 0.25       # c_r = glm_cr_factor / dx_finest
 
     dtype: str = "float64"
-    # fused Pallas sweep path: "auto" (TPU backends only), "on", "off",
-    # or "interpret" (for CPU correctness tests)
-    pallas: str = "auto"
     # multi-chip halo strategy: "gspmd" lets XLA infer collectives from
     # NamedSharding; "explicit" uses the hand-scheduled shard_map +
     # ppermute path (parallel/halo.py — Cartesian pure-dynamics only,
     # the MCMD_boundaries equivalent)
     halo: str = "gspmd"
     # device-mesh execution: "auto" shards the state over ALL visible
-    # devices on construction when they are real accelerators (multi-chip
+    # devices on construction when they are GPUs (multi-card
     # runs need nothing else under GSPMD — the jitted step follows the
     # input sharding); "on" forces sharding on any backend (used to
     # exercise GSPMD on the virtual CPU mesh); "off" keeps the state on
@@ -77,7 +74,7 @@ class SimConfig:
     # point, main_NG_MPI.cpp:40-60 — here the same CLI is)
     mesh: str = "auto"
     # HLLD->HLL switch in compressive strong-gradient zones (Mignone+ 2011;
-    # reference behavior).  Disable to trade robustness for ~25% step speed.
+    # reference behavior).  Disable to trade robustness for step speed.
     hlld_fallback: bool = True
     # Slavin & Cox (1992) saturated thermal conduction (reference:
     # #define THERMAL_CONDUCTION, defines/functionality_flags.h:90 —

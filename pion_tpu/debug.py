@@ -1,7 +1,7 @@
 """Interactive cell inspector (the debugger the reference builds in
 TESTING mode).
 
-TPU-native equivalent of the reference's gdb-like command-line cell
+JAX equivalent of the reference's gdb-like command-line cell
 debugger (reference: source/tools/command_line_interface.cpp:54-188 —
 ``fpt``/``lpt``/``next_point(dir)``/``end_of_col(dir)``/``print_cell``,
 plus a shell escape).  The pointer-walk over linked-list cells becomes a

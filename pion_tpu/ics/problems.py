@@ -190,7 +190,7 @@ def multi_clumps(cfg: SimConfig, mode="fixnum", n_clumps=10, total_mass=None,
                  cloud_radius=None, strategic=(), seed=7) -> np.ndarray:
     """PhotEvap_MultiClumps_FixNum / _FixMass + strategic clumps.
 
-    TPU-native re-derivation of the multi-clump generator (reference:
+    JAX re-derivation of the multi-clump generator (reference:
     ics/photoevaporating_multiclumps.cpp: get_random_clump_params draws
     either a fixed number of clumps with random masses [FixNum, :756-800]
     or keeps drawing until a total mass budget is spent [FixMass,

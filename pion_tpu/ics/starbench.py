@@ -1,6 +1,6 @@
 """StarBench workshop test initial conditions.
 
-TPU-native re-derivation of the StarBench IC generators
+JAX re-derivation of the StarBench IC generators
 (reference: source/ics/StarBench_test.cpp:63-959, dispatched from
 icgen_base.cpp:99-116).  All generators fill dense primitive arrays
 ``(nvar, *spatial)`` vectorized over the grid; spatial axes are in array

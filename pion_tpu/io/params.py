@@ -159,10 +159,9 @@ def config_from_params(params: Dict[str, str], **extra) -> SimConfig:
         ng_centre=ng_centre,
         # precision: the reference's pion_flt compile flag becomes a
         # run-time param (functionality_flags.h); float64 matches upstream
-        # defaults, float32 is the TPU production mode
+        # defaults, float32 is the reduced-precision mode
         dtype=str(gf(["dtype", "pion_flt"], "float64")).strip(),
-        # extension keys (not in the reference dialect): kernel/halo modes
-        pallas=str(gf(["pallas"], "auto")).strip(),
+        # extension key (not in the reference dialect): halo mode
         halo=str(gf(["halo"], "gspmd")).strip(),
         **extra,
     )

@@ -5,15 +5,26 @@ The reference defines the module interface in microphysics_base
 TimeUpdateMP_RTnew, timescales(_RT), Temperature, Set_Temp.  Here the
 interface is duck-typed (update / timescales / temperature / set_temp) and
 :class:`JitCachedMP` supplies jit-compiled dispatch for modules that
-implement ``_update_impl`` / ``_timescales_impl``.
+implement ``_update_impl`` / ``cell_timescales``.
 """
 from __future__ import annotations
 
 from typing import Dict, Optional
 
 import jax
+import jax.numpy as jnp
 
 from ..config import SimConfig
+
+
+def min_timescale(t, exclude=None):
+    """Smallest per-cell timescale, skipping the cells in ``exclude``
+    (internal-boundary cells such as a wind region: the reference's
+    microphysics dt loops skip ``c->isbd`` cells, calc_timestep.cpp
+    get_mp_timescales_with_radiation / _no_radiation)."""
+    if exclude is not None:
+        t = jnp.where(exclude, jnp.inf, t)
+    return jnp.min(t)
 
 
 class JitCachedMP:
@@ -25,6 +36,9 @@ class JitCachedMP:
     # (microphysics_base.cpp:96-118).  Empty for the implemented
     # single-ion H modules; multi-element modules must declare theirs.
     element_slots: tuple = ()
+
+    def _timescales_impl(self, P, cfg: SimConfig, rt: Dict, exclude=None):
+        return min_timescale(self.cell_timescales(P, cfg, rt), exclude)
 
     def _jits(self):
         if not hasattr(self, "_jit_cache"):

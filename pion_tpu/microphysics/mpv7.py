@@ -118,12 +118,12 @@ class MPv7(JitCachedMP):
         out = P.at[c.tracer_slot].set(x)
         return out.at[PG].set(self.n_tot(nH, x) * K_B * self.t_of_x(x))
 
-    def _timescales_impl(self, P, cfg: SimConfig, rt: Dict):
+    def cell_timescales(self, P, cfg: SimConfig, rt: Dict):
         c = self.mpc
         nH = self.n_H(P[RO])
         omx = jnp.clip(1.0 - P[c.tracer_slot], MIN_NEUTRAL, 1.0 - MIN_NEUTRAL)
         d = self.xdot(omx, nH, rt)
-        return jnp.min(0.25 / (jnp.abs(d) + 1e-100))
+        return 0.25 / (jnp.abs(d) + 1e-100)
 
     def default_rt(self, P) -> Dict:
         z = jnp.zeros_like(P[RO])

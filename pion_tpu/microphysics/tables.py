@@ -1,6 +1,6 @@
 """Atomic rate data and lookup-table construction for the chemistry modules.
 
-TPU-native equivalent of the reference rate libraries
+JAX equivalent of the reference rate libraries
 (reference: source/microphysics/hydrogen_mp.cpp (Voronov 1997 collisional
 ionization, Aggarwal 1983 collisional excitation), hydrogen_recomb_Hummer94.cpp
 (Hummer 1994 case-B recombination/cooling), cooling_SD93_cie.cpp (Wiersma et

@@ -1,6 +1,6 @@
 // Native snapshot runtime: multithreaded compression + field diff norms.
 //
-// TPU-native counterpart of the reference's C/C++ I/O stack (reference:
+// Counterpart of the reference's C/C++ I/O stack (reference:
 // source/dataIO/dataio_silo_MPI.cpp PMPIO grouped parallel writes and
 // analysis/silocompare/silocompare.cpp cell-by-cell norms).  The hot paths
 // of checkpointing large device arrays — compressing gigabyte snapshots and

@@ -1,6 +1,6 @@
 """Saturated thermal conduction (Slavin & Cox 1992).
 
-TPU-native re-derivation of the reference's compile-flagged conduction
+JAX re-derivation of the reference's compile-flagged conduction
 module (reference: source/spatial_solvers/solver_eqn_base.cpp:687-875
 ``set_thermal_conduction_Edot``; enabled by ``#define THERMAL_CONDUCTION``,
 defines/functionality_flags.h:90; dt limit in
@@ -20,7 +20,7 @@ and Edot = -div(Q) with the coordinate-system face/volume factors
 (the same div_cn/div_cp coefficients the flux divergence uses).
 
 The reference walks columns cell-by-cell; here each axis is three dense
-slices and the whole grid updates at once on the VPU.
+slices and the whole grid updates at once.
 """
 from __future__ import annotations
 

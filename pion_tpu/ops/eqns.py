@@ -1,11 +1,11 @@
 """Equation-system algebra: P<->U conversions, fluxes, wave speeds.
 
-TPU-native re-derivation of the reference equation classes
+JAX re-derivation of the reference equation classes
 (reference: source/equations/eqns_hydro_adiabatic.cpp:89-346,
 source/equations/eqns_mhd_adiabatic.cpp:79-355,598-660).  All functions are
 pure and vectorized: state arrays carry the variable index on the LEADING
 axis, ``P.shape == (nvar, *spatial)``, so each component ``P[RO]`` is a
-contiguous spatial array whose last dimension rides the TPU lanes.
+contiguous spatial array whose last dimension is the contiguous one.
 
 "Sweep frame": flux/Riemann routines assume the sweep direction occupies the
 VX/BX slots.  :func:`sweep_perm` builds the cyclic slot permutation that maps

@@ -1,6 +1,6 @@
 """Hydrodynamic Riemann solvers, vectorized over interface arrays.
 
-TPU-native equivalents of the reference solver menu
+JAX equivalents of the reference solver menu
 (reference: source/Riemann_solvers/: HLL_hydro.cpp, riemann.cpp (exact/linear),
 Roe_Hydro_ConservedVar_solver.cpp, Roe_Hydro_PrimitiveVar_solver.cpp,
 Riemann_FVS_hydro.cpp).  Every per-interface scalar branch of the C++ becomes

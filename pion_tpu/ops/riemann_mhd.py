@@ -1,6 +1,6 @@
 """MHD Riemann solvers, vectorized over interface arrays.
 
-TPU-native equivalents of the reference MHD solver menu
+JAX equivalents of the reference MHD solver menu
 (reference: source/Riemann_solvers/HLLD_MHD.cpp (Miyoshi & Kusano 2005),
 Roe_MHD_ConservedVar_solver.cpp (Cargo & Gallice 1997), riemannMHD.cpp
 (Falle et al. 1998 linear eigenvector solver)).

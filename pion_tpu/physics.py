@@ -272,8 +272,7 @@ class Physics:
                  else self.mp._update_impl(P, dt, cfg, self.mp.default_rt(P)))
         return prim_to_cons(P_new, cfg) - prim_to_cons(P, cfg)
 
-    def timescale(self, P, cfg: SimConfig, tau_in=None, rt=None, sp=None,
-                  with_ydot=False):
+    def timescale(self, P, cfg: SimConfig, tau_in=None, rt=None, sp=None):
         mode = int(self.dt_limit)
         procs = getattr(self.mp, "dt_limit_processes",
                         ("cooling", "recomb", "ion"))
@@ -282,26 +281,19 @@ class Physics:
         if mode != 0 and not set(mode_procs.get(mode, ())) & set(procs):
             # e.g. mode 4 (recomb only) with a cooling-only module:
             # no applicable process -> no chemistry limit
-            big = jnp.asarray(1.0e99, dtype=P.dtype)
-            if with_ydot:
-                # no usable ydot to seed the update with (trace-time None)
-                return big, None
-            return big
+            return jnp.asarray(1.0e99, dtype=P.dtype)
         if rt is None:
             rt = (self.raytrace(P, tau_in, sp=sp) if self.sources
                   else self.mp.default_rt(P))
-        import inspect
-
-        if "with_ydot" in inspect.signature(
-                self.mp._timescales_impl).parameters:
-            return self.mp._timescales_impl(P, cfg, rt, with_ydot=with_ydot)
-        ts = self.mp._timescales_impl(P, cfg, rt)
-        return (ts, None) if with_ydot else ts
+        # wind-region cells are boundary data: skipped here as in the CFL dt
+        exclude = self.wind_exclude_mask() if self.winds else None
+        return self.mp._timescales_impl(P, cfg, rt, exclude)
 
     def wind_exclude_mask(self):
-        """Union of the (static) wind-region masks — cells the CFL dt
-        reduction skips, like the reference's internal-boundary isbd flag
-        (calc_timestep.cpp calc_dynamics_dt).  Orbiting sources move, so
+        """Union of the (static) wind-region masks — cells the CFL and the
+        chemistry dt reductions skip, like the reference's internal-boundary
+        isbd flag (calc_timestep.cpp calc_dynamics_dt and the microphysics
+        timescale loops).  Orbiting sources move, so
         their cells stay in the reduction (conservative)."""
         mask = None
         for w in self.winds:

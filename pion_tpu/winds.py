@@ -1,6 +1,6 @@
 """Stellar-wind internal boundary regions.
 
-TPU-native re-derivation of the reference wind machinery
+JAX re-derivation of the reference wind machinery
 (reference: source/grid/stellar_wind_BC.cpp: add_source/add_cell carve a
 sphere of radius R around each source and every step overwrite the cells
 inside with the free-wind state; stellar_wind_evolution interpolates
@@ -21,7 +21,7 @@ Wind models (``WindSource.model``):
   omega-slow-wind solution (reference: grid/stellar_wind_angle.cpp
   fn_phi/fn_alpha/fn_delta/fn_v_inf/fn_density:290-440).  The reference
   tabulates alpha/delta on (omega, theta, Teff) grids and tri-linearly
-  interpolates; on TPU the closed-form functions are cheap elementwise
+  interpolates; here the closed-form functions are cheap elementwise
   ops, so we evaluate them directly (the Simpson quadrature for delta is
   a fixed 230-point vectorized sum) — no tables needed.
 - ``"latdep"`` — simplified latitude profile rho ~ (1 + A f(theta)),

@@ -103,16 +103,15 @@ def test_conduction_run_smooths_temperature():
 
 
 def test_conduction_2d_pallas_no_physics():
-    """2D conduction run with no microphysics through the Pallas branch
-    (pallas='interpret'): guards the stepper's physics-None handling on the
-    kernel path (regression: scma flag crashed when physics was None)."""
+    """2D f32 conduction run with no microphysics: guards the stepper's
+    physics-None handling (regression: scma flag crashed when physics was
+    None)."""
     n = 16
     L = 3.0e17
     cfg = SimConfig(ndim=2, eqn=Eqn.EULER, solver="hll", shape=(n, n),
                     xmin=(0.0, 0.0), xmax=(L, L), cfl=0.3,
                     bcs=(("outflow", "outflow"),) * 2, conduction=True,
-                    p_ref=1.0e-12, tmax=1.0e20, dtype="float32",
-                    pallas="interpret")
+                    p_ref=1.0e-12, tmax=1.0e20, dtype="float32")
     x = cfg.cell_centers(0)
     T = 1.0e6 * (1.0 + 2.0 * np.exp(-((x - 0.5 * L) / (0.2 * L)) ** 2))
     P = np.zeros((cfg.nvar, n, n), dtype=np.float32)

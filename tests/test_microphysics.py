@@ -322,3 +322,93 @@ def test_stiff_compaction_overflow_matches_dense():
     ref = mp._finish_update(P, nH, o_ref, e_ref)
     np.testing.assert_allclose(np.asarray(out_overflow),
                                np.asarray(ref), rtol=1e-12, atol=0)
+
+
+# -- table lookups against NumPy interpolation of the same tables ----------
+
+def _log_uniform(lo, hi, n, dtype, seed):
+    rng = np.random.default_rng(seed)
+    return (10.0 ** rng.uniform(np.log10(lo), np.log10(hi), n)).astype(dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+def test_mpv3_t1_lookup_matches_numpy_interp(dtype):
+    """The stacked row-gather lookup of every 1D temperature curve equals
+    linear-in-T interpolation of the named tables (all 200 rows)."""
+    mp = MPv3(MPv3Config(tracer_slot=5))
+    Tg = np.asarray(mp.tab["T"])
+    T = _log_uniform(Tg[0], Tg[-1], 4096, dtype, 1)
+    T[:3] = np.asarray(Tg[[0, 57, -1]], dtype=dtype)   # on grid points
+    vals, _i, _lo, _hi = mp._t1_lookup(jnp.asarray(T))
+    Tref = T.astype(np.float64)
+    rtol = 1e-10 if dtype == "float64" else 1e-5
+    for name in mp._t1_names:
+        ref = np.interp(Tref, Tg, np.asarray(mp.tab[name]))
+        np.testing.assert_allclose(np.asarray(vals[name]), ref, rtol=rtol,
+                                   atol=1e-12 * np.abs(ref).max(),
+                                   err_msg=name)
+
+
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+def test_mpv3_tau_lookup_matches_numpy_interp(dtype):
+    """The photoionization rate/heat lookup equals 10^(linear-in-log-tau
+    interpolation) of the named mfion tables, with tau clipped to the
+    table's bounds."""
+    from pion_tpu.constants import RSUN
+
+    mp = MPv3(MPv3Config(tracer_slot=5, ion_src="mfion", n_idot=1e48,
+                         tstar=3.75e4, rstar_cm=10.0 * RSUN))
+    lg = np.asarray(mp.tab["log_tau"])
+    tau0 = _log_uniform(1e-4, 1e7, 4096, dtype, 2)
+    dtau = _log_uniform(1e-3, 1e2, 4096, dtype, 3)
+    r0, r1 = mp._tau_lookup(jnp.asarray(tau0), jnp.asarray(dtau))
+    tmin, tmax = mp.tau_bounds
+    rtol = 1e-10 if dtype == "float64" else 2e-4
+    # f32 compares where f32 can represent the rate (deep-tail values
+    # below its normal range are zero in an f32 run)
+    floor = 0.0 if dtype == "float64" else np.finfo(np.float32).tiny
+    for tau, r in ((tau0, r0), (tau0 + dtau, r1)):
+        lt = np.log10(np.clip(tau.astype(np.float64), tmin, tmax))
+        for k, name in enumerate(("pi_rate", "pi_heat", "lt_pi_rate",
+                                  "lt_pi_heat")):
+            ref = 10.0 ** np.interp(lt, lg, np.asarray(mp.tab[name]))
+            keep = ref > floor
+            assert keep.mean() > 0.5
+            np.testing.assert_allclose(np.asarray(r[..., k])[keep],
+                                       ref[keep], rtol=rtol, err_msg=name)
+
+
+_NP_EDOT = {
+    "KI02": lambda f, ne, ni, nmu: 2.0e-26 * nmu - nmu * nmu * f["ki02"],
+    "SD93_CIE": lambda f, ne, ni, nmu: -ne * ni * f["sd93"],
+    "SD93_PLUS_HEATING":
+        lambda f, ne, ni, nmu: ne * nmu * f["heat"] - ne * ni * f["sd93"],
+    "WSS09_CIE_ONLY_COOLING":
+        lambda f, ne, ni, nmu: 2.0e-26 * nmu - nmu * nmu * f["sd93"],
+    "WSS09_CIE_PLUS_HEATING":
+        lambda f, ne, ni, nmu: ne * nmu * f["heat"] - nmu * nmu * f["sd93"],
+    "WSS09_CIE_LINE_HEAT_COOL": lambda f, ne, ni, nmu: (
+        np.minimum(-f["C_fbdn"] * ne * nmu, -f["sd93"] * nmu * nmu)
+        - f["C_rrh"] * ne * nmu - f["C_ffhe"] * ne * nmu
+        + 8.01e-12 * f["rrhp"] * ne * nmu),
+}
+
+
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+@pytest.mark.parametrize("curve", sorted(_NP_EDOT))
+def test_cooling_edot_matches_numpy_interp(curve, dtype):
+    """mp_only_cooling's row-gather Edot equals the same curve assembled
+    from NumPy interpolation of its 300-row per-component tables."""
+    mp = MPOnlyCooling(CoolingConfig(curve=curve, min_temperature=10.0,
+                                     max_temperature=1.0e9))
+    Tg = np.asarray(mp.Tg)
+    T = _log_uniform(1.0, 1.0e10, 4096, dtype, 4)    # includes clipping
+    rho = _log_uniform(1e-26, 1e-20, 4096, dtype, 5)
+    got = np.asarray(mp.edot(jnp.asarray(rho), jnp.asarray(T)))
+    Tc = np.clip(T.astype(np.float64), Tg[0], Tg[-1])
+    f = {k: np.interp(Tc, Tg, np.asarray(v)) for k, v in mp.tab.items()}
+    r = rho.astype(np.float64)
+    ref = _NP_EDOT[curve](f, r / mp.MU_ELEC, r / mp.MU_ION, r / mp.MU)
+    rtol = 1e-10 if dtype == "float64" else 1e-4
+    np.testing.assert_allclose(got, ref, rtol=rtol,
+                               atol=1e-9 * np.abs(ref).max())

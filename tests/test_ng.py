@@ -363,37 +363,6 @@ def test_ng_snapshot_restart_bitwise(tmp_path):
                                       np.asarray(h2.P[l]))
 
 
-def test_ng_fast_corrector_matches_xla_path():
-    """The Pallas-dU + interface_flux corrector path (pallas='interpret')
-    must match the XLA sweep path with faces — including the BC89
-    correction and parent-boundary flux restriction."""
-    n = 16
-    base = dict(ndim=2, eqn=Eqn.GLM, solver="hlld", ntracer=1,
-                shape=(n, n), xmin=(0.0, 0.0), xmax=(1.0, 1.0),
-                bcs=(("outflow", "outflow"),) * 2, cfl=0.3, ooa=2,
-                av="falle", etav=0.1, dtype="float32", tmax=1.0)
-    from pion_tpu.ics.blast import blast_wave
-
-    def run(pallas):
-        cfg = SimConfig(pallas=pallas, **base)
-        hier = NGHierarchy(cfg, 2)
-        states = [jnp.asarray(blast_wave(c, B0=(0.1, 0.05, 0.0)).astype(
-            np.float32)) for c in hier.cfgs]
-        hier.set_states(states)
-        for _ in range(3):
-            hier.step(1.0e-3)
-        return [np.asarray(p) for p in hier.P]
-
-    ref = run("off")
-    fast = run("interpret")
-    for l in range(2):
-        assert np.all(np.isfinite(fast[l]))
-        np.testing.assert_allclose(
-            fast[l], ref[l], rtol=2e-5,
-            atol=1e-6 * np.abs(ref[l]).max(),
-            err_msg=f"level {l}")
-
-
 def test_ng_chunked_run_matches_stepwise():
     """chunk>1 hierarchy stepping (one lax.scan dispatch per K steps)
     must reproduce the per-step path bitwise: same dt policy, same

@@ -107,7 +107,6 @@ def test_coupled_sharded_run_matches_single_device():
     a = np.asarray(sim1.P)
     b = np.asarray(sim8.P)
     assert np.all(np.isfinite(a)) and np.all(np.isfinite(b))
-    # shard-local paths differ from the single-device Pallas/XLA mix only
-    # by fp reassociation; on the CPU test backend both take XLA dynamics,
-    # so fields agree tightly
+    # the sharded run (dense chemistry ladder) differs from the
+    # single-device run (compacted stiff cells) only by fp reassociation
     np.testing.assert_allclose(b, a, rtol=2e-4, atol=1e-30)

@@ -236,8 +236,8 @@ def test_mhd_wind_split_monopole():
 
 
 def test_wind_f32_safe():
-    """cgs wind formulas must not overflow/underflow float32 (production TPU
-    precision): rho>0 and pg>0 throughout the region, dt finite, one step
+    """cgs wind formulas must not overflow/underflow float32 (the reduced-
+    precision mode): rho>0 and pg>0 throughout the region, dt finite, one step
     finite.  Regression for the 8*pi*r^2*v ~ 1e43 overflow."""
     import contextlib
     import jax

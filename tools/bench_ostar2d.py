@@ -6,7 +6,7 @@ runs to FinishTime=1e13 s in ~15 minutes on 32 Kay cores
 (/root/reference/test_problems/OpenMP/README.md:17-18, kay.*.txt).
 
 This script icgens + runs the SAME param file through the pion_tpu CLI on
-one chip and reports walltime + step count.  Usage:
+one GPU and reports walltime + step count.  Usage:
     python tools/bench_ostar2d.py [dtype] [finish_time]
 """
 import os
@@ -15,14 +15,9 @@ import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-import jax
+from pion_tpu.device import use_compile_cache  # noqa: E402
 
-if os.environ.get("PION_TPU_PLATFORM"):
-    jax.config.update("jax_platforms", os.environ["PION_TPU_PLATFORM"])
-jax.config.update("jax_compilation_cache_dir",
-                  os.path.join(os.path.dirname(os.path.dirname(
-                      os.path.abspath(__file__))), ".jax_cache"))
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+use_compile_cache()
 
 import numpy as np
 
@@ -53,7 +48,7 @@ def main():
           f"walltime={wall:.1f}s finite={ok} "
           f"({ups/1e6:.2f}M cell-updates/s incl. compile)")
     print("reference: ~900 s on 32 Kay cores (OpenMP/README.md:17-18) "
-          f"-> speedup x{900.0/wall:.1f} on one chip")
+          f"-> speedup x{900.0/wall:.1f} on one GPU")
 
 
 if __name__ == "__main__":

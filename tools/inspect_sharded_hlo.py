@@ -1,35 +1,20 @@
 """Dump the collective-op census of the sharded (GSPMD) step programs.
 
-Answers "what does XLA actually emit for the halo pattern?" without N real
-chips: compiles the fused step over an 8-virtual-device CPU mesh and counts
-collectives in the optimized HLO (VERDICT r3 item 9 evidence).
+Answers "what does XLA actually emit for the halo pattern?" without the
+cards: compiles the fused step over a 4-virtual-device CPU mesh (the 2x2x1
+decomposition a 4-GPU host gets) and counts collectives in the optimized
+HLO.  ``chip_smoke.py --cards 4`` prints the same census for the compiled
+GPU step.  Sharded runs take the dense chemistry ladder and the GSPMD plane
+sweep for the raytrace; the hand-scheduled alternative for pure dynamics is
+``cfg.halo='explicit'`` (parallel/halo.py via Simulation).
 
-Findings (2026-08-21 round 5, 2x2x2 mesh, 32^3, f32, cfg.mesh='on'
-so the sharded-run gates engage exactly as a real multi-chip run):
-- dynamics-only GLM+HLLD step: 234 collective-permutes (the ghost-strip
-  halo pattern — equivalent to the reference's MCMD_boundaries exchange),
-  ZERO all-gathers, 33 small all-reduces (dt/c_h scalars).
-- coupled MPv3+RT+wind step: **ZERO all-gathers** (78 permutes, 102
-  all-reduces).  The two r4 all-gather sources are both eliminated:
-  stiff compaction -> masked dense ladder when sharded (elementwise,
-  shard-local), and the RT trace -> the shard_map causal-pipeline
-  schedule (pallas_trace.sharded_octant_trace: per-shard octant kernels
-  + one source-plane ppermute per axis — the raytracer_SC_pllel.cpp:
-  156-221 recv-trace-send wavefront) for the centered-source 2x2x2
-  decomposition; other source/mesh layouts take the GSPMD plane sweep.
-Single-device fast paths (the Pallas octant sweep / fused MPv3 kernel /
-fused dynamics sweeps) are opaque full-shape ops that would each force an
-all-gather under GSPMD, so sharded runs disable them and take the XLA
-paths; wrapping them in shard_map is the planned multi-chip fast path.
-The hand-scheduled alternative for pure dynamics is wired as
-cfg.halo='explicit' (parallel/halo.py via Simulation).
+    python tools/inspect_sharded_hlo.py
 """
 import os
-import re
 import sys
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-os.environ.setdefault("XLA_FLAGS", "--xla_force_host_platform_device_count=8")
+os.environ.setdefault("XLA_FLAGS", "--xla_force_host_platform_device_count=4")
 
 import jax
 
@@ -38,15 +23,12 @@ jax.config.update("jax_platforms", "cpu")
 import numpy as np
 import jax.numpy as jnp
 
-COLLECTIVES = ("collective-permute", "all-gather", "all-reduce",
-               "all-to-all", "reduce-scatter")
-
-
 def census(label, lowered):
-    hlo = lowered.compile().as_text()
+    from pion_tpu.parallel.mesh import collective_counts
+
     print(f"{label}:")
-    for name in COLLECTIVES:
-        print(f"  {name:20s} {len(re.findall(re.escape(name), hlo))}")
+    for name, k in collective_counts(lowered.compile().as_text()).items():
+        print(f"  {name:20s} {k}")
 
 
 def main():
@@ -65,8 +47,8 @@ def main():
                     shape=(n,) * 3, xmin=(0.0,) * 3, xmax=(1.0,) * 3,
                     bcs=tuple([("outflow", "outflow")] * 3), cfl=0.3,
                     ooa=2, av="falle", etav=0.1, dtype="float32",
-                    mesh="on")  # engage the sharded-run gates (dense
-    # chemistry ladder, XLA RT sweep) exactly as a real multi-chip run
+                    mesh="on")  # engage the sharded-run paths (dense
+    # chemistry ladder) exactly as a real multi-GPU run
     mesh = make_mesh(cfg)
     P0 = jnp.asarray(blast_wave(cfg, B0=(0.1, 0.05, 0.0)).astype(np.float32))
     sim = Simulation(cfg, shard_state(P0, mesh, cfg))

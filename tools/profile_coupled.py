@@ -1,4 +1,4 @@
-"""Profile the coupled MPv3+RT+wind step piece by piece on the real chip.
+"""Profile the coupled MPv3+RT+wind step piece by piece on the GPU.
 
 Times each component of the coupled path separately so optimization effort
 goes where the wall-clock is: raytrace, ydot, stiff solve, mp update, full
@@ -12,10 +12,9 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import jax
 
-jax.config.update("jax_compilation_cache_dir",
-                  os.path.join(os.path.dirname(os.path.dirname(
-                      os.path.abspath(__file__))), ".jax_cache"))
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+from pion_tpu.device import use_compile_cache  # noqa: E402
+
+use_compile_cache()
 
 import jax.numpy as jnp
 import numpy as np
